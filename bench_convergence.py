@@ -3,8 +3,9 @@ heteroscedastic trained to the float64 port-of-record log-ML, in seconds.
 
 Protocol (BASELINE.md steps 2-3): the "reference log-ML" is what the strict
 float64 solve path converges to on the same seeded problem; the shipped
-(mixed-precision) TPU path must reach it and the wall clock to get there is
-the headline number (target < 60 s on one v5e host, warm compilation cache).
+float32 default path must reach it and the wall clock to get there is
+the headline number (BASELINE.json's budget: < 60 s on one device, warm
+compilation cache).
 
 Usage:
   python bench_convergence.py                # benchmark the shipped config
@@ -31,6 +32,10 @@ TARGET_FILE = os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
     "benchmarks", "convergence_target.json",
 )
+
+#: measurement records (not committed: see .gitignore)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out")
 
 N_TRAIN = 70_000
 N_VALID = 10_000
@@ -122,7 +127,7 @@ def summarize(model, seconds, label):
     it1 = model.fit_info.get("phase1_iterations")
     if it1 is not None:
         # where the mixed phase stalled, and what the f64 endgame then had
-        # to close — the compute budget's two halves (PRECISION.md §5-6)
+        # to close — the compute budget's two halves (PRECISION.md §2)
         out["phase1_final_nlml"] = float(f[it1])
         out["phase1_fun_evals"] = int(fev[it1])
     return out, f, fev
@@ -133,7 +138,7 @@ def time_to_target(f, fev, total_seconds, total_evals, target, tol,
                    phase_iterations=None):
     """Seconds until the trace first reaches target (+tol), attributing wall
     clock by cumulative objective evals. The phases' per-eval costs differ
-    ~8x (mixed ~22 ms vs f64 ~188 ms; PRECISION.md §5-6), so when phase
+    (a float32 eval is cheaper than a float64 one), so when phase
     timings are available each phase's wall is attributed uniformly over
     ITS OWN evals instead of pooling — `phase_iterations` (fit_info) gives
     the per-phase iteration counts; in the stitched trace phase p spans
@@ -185,17 +190,15 @@ def main():
                     help="run strict/mixed/f32 and compare")
     ap.add_argument("--fresh-only", action="store_true",
                     help="one training run in this (fresh) process, "
-                    "appended to benchmarks/CONVERGENCE_r05.json with the "
-                    "fresh_process label — the BASELINE.md 'run the tool, "
-                    "get the model' condition (VERDICT r4 next #1: three "
-                    "consecutive fresh-process runs)")
+                    "appended to chiprun_out/convergence_fresh.json with "
+                    "the fresh_process label — the BASELINE.md 'run the "
+                    "tool, get the model' condition")
     args = ap.parse_args()
 
     if args.target:
         # The reference pipeline is MATLAB float64 end to end; the honest
         # target is therefore dtype=float64 + strict f64 reductions, run on
-        # CPU where f64 is native (a TPU-emulated-f64 run computes the same
-        # numbers, ~50x slower). Forced BEFORE the first backend touch.
+        # CPU where f64 is native. Forced BEFORE the first backend touch.
         import jax
 
         jax.config.update("jax_platforms", "cpu")
@@ -245,8 +248,8 @@ def main():
         out["reached_target"] = t_hit is not None
         out["seconds_to_target"] = None if t_hit is None else round(t_hit, 2)
         print(json.dumps(out), flush=True)
-        rec_file = os.path.join(os.path.dirname(TARGET_FILE),
-                                "CONVERGENCE_r05.json")
+        rec_file = os.path.join(OUT_DIR, "convergence_fresh.json")
+        os.makedirs(OUT_DIR, exist_ok=True)
         recs = {"fresh_process_runs": []}
         if os.path.exists(rec_file):
             with open(rec_file) as fh:
@@ -312,10 +315,9 @@ def main():
                 "process_warm_value": mixed_warm["seconds_to_target"],
             }))
 
-    # committed artifact: the mixed-run result next to the target it chased
-    # (VERDICT r2 weak #2: the headline number must exist in the repo)
-    result_file = os.path.join(os.path.dirname(TARGET_FILE),
-                               "convergence_result.json")
+    # the run's result next to the target it chased
+    result_file = os.path.join(OUT_DIR, "convergence_result.json")
+    os.makedirs(OUT_DIR, exist_ok=True)
     with open(result_file, "w") as fh:
         json.dump({"target": target, "runs": results}, fh, indent=1)
 

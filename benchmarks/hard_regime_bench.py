@@ -3,14 +3,11 @@ where the wall clock is actually spent, at a committed TRAINED parameter
 set (benchmarks/photoz_trained_m100.npz — the shipped photo-z VC m=100
 model, see parity_numbers.py).
 
-Round-5 finding: at this point the raw f32 mixed pipeline is NOT FINITE on
-the TPU backend — cond(iSig) ~ 3e9 NaNs ~1% of the f32 design-matrix
-factorizations, which NaNs ln_beta/Gram/objective, and every safe_cholesky
-then walks its full jitter-escalation ladder. Round 4's
-"mixed_evals_per_sec_trained_point: 10.92" was therefore measuring the
-NaN path (8 factorizations + strict fallback per eval), not a working
-mixed eval. train() now probes x0 (objective.probe_phase) and starts in
-the phase this bench measures:
+At this point the raw f32 mixed pipeline can be NOT FINITE — cond(iSig)
+~ 3e9 can NaN a few of the f32 design-matrix factorizations, which NaNs
+ln_beta/Gram/objective, and every safe_cholesky then walks its full
+jitter-escalation ladder. train() probes x0 (objective.probe_phase) and
+starts in the phase this bench measures:
 
   * the probe verdict at the trained point (pipeline_finite, fast_solve_ok)
   * evals/s of the SHIPPED continuation path at the trained point (what
@@ -19,7 +16,7 @@ the phase this bench measures:
     Gram, including the fast solve's ok gate
 
 Usage:  python benchmarks/hard_regime_bench.py
-Writes HARD_BENCH.json at the repo root; one JSON line per case.
+Writes chiprun_out/hard_bench.json; one JSON line per case.
 """
 
 from __future__ import annotations
@@ -35,7 +32,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                   "HARD_BENCH.json")
+                   "chiprun_out", "hard_bench.json")
 CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "photoz_trained_m100.npz")
 
@@ -157,6 +154,7 @@ def main():
     print(json.dumps({"case": "f64_refine_trained",
                       "evals_per_sec": round(r64, 2)}))
 
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as fh:
         json.dump(results, fh, indent=1)
     print(json.dumps({"written": os.path.basename(OUT)}))

@@ -8,8 +8,11 @@ demo_photoz.m), runs the SAME seeded data through two pipelines:
     port-of-record configuration (the reference pipeline is MATLAB f64
     end to end; the objective itself is FD-validated against
     tests/reference_impl.py),
-  * shipped: the default float32 config (mixed fast phase + automatic f64
-    refine, TrainConfig.refine="auto") on whatever backend is active.
+  * shipped: the default float32 config (float32 design matrix with the
+    platform's default reductions + automatic f64 refine,
+    TrainConfig.refine="auto") on whatever backend is active — recorded
+    with its platform, device kind and, on a GPU, the card's name and
+    power limit.
 
 and records final log-ML, test RMSE / MLL (+ FR15/FR05/bias for photo-z)
 into PARITY_NUMBERS.json with tolerances. tests/test_parity_numbers.py
@@ -128,6 +131,20 @@ def _cache_state():
     return len(sizes), sum(sizes)
 
 
+def _device_info():
+    """Platform and device kind of the run; on a GPU also the card's name
+    and power limit (nvidia-smi), which every card timing carries."""
+    import jax
+
+    from bench import card_lines
+
+    dev = jax.devices()[0]
+    info = {"platform": dev.platform, "device_kind": dev.device_kind}
+    if dev.platform == "gpu":
+        info["card"] = card_lines().splitlines()[0]
+    return info
+
+
 def run_config(name, pipeline, max_iter=200, max_attempts=50):
     """pipeline: 'reference' (f64 end-to-end) or 'shipped' (f32 defaults)."""
     import gpz_tpu
@@ -165,7 +182,7 @@ def run_config(name, pipeline, max_iter=200, max_attempts=50):
         # persistent compile cache before this run, and added by it
         "cache_entries_before": cache_n0,
         "cache_entries_added": _cache_state()[0] - cache_n0,
-        "backend": __import__("jax").default_backend(),
+        **_device_info(),
     }
     if name.startswith("photoz"):
         out["fr15"] = float(M.cumulative_by_confidence(y, mu, sigma, M.fr15)[-1])
@@ -222,7 +239,7 @@ def main():
                     help="only the small CI config")
     ap.add_argument("--skip-reference", action="store_true")
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (leave the TPU alone)")
+                    help="force the CPU backend (leave the GPU alone)")
     args = ap.parse_args()
 
     if args.cpu:

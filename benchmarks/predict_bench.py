@@ -1,11 +1,11 @@
 """Prediction-scale benchmark (VERDICT r2 item 4): wall clock of the
 public predict API at m in {100, 1000} x {clean, noisy, noisy+missing},
 so regressions at the north-star scale (BASELINE.json configs[4]) are
-visible — round 2 shipped an m=1000 noisy+missing path that crashed the
-TPU worker and no bench existed to catch it.
+visible (an m=1000 noisy+missing path once crashed the device and no
+bench existed to catch it).
 
 Usage:  python benchmarks/predict_bench.py [--n 2000] [--nq 256]
-Writes PREDICT_BENCH.json at the repo root and prints one JSON line per
+Writes chiprun_out/predict_bench.json and prints one JSON line per
 case (seconds are second-call, compile excluded).
 """
 
@@ -22,7 +22,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                   "PREDICT_BENCH.json")
+                   "chiprun_out", "predict_bench.json")
 
 
 def main():
@@ -90,6 +90,7 @@ def main():
             results.append(row)
             print(json.dumps(row), flush=True)
 
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as fh:
         json.dump({"results": results}, fh, indent=1)
 

@@ -3,8 +3,8 @@ BASELINE.json): weak-scaling of the SPMD objective over the data mesh axis.
 
 For each device count D, runs the n-sharded objective+gradient with n = D *
 ROWS_PER_DEVICE rows and reports throughput (rows/s) and parallel efficiency
-relative to D=1 (rows/s/device ratio). On real multi-chip hardware run as-is;
-on a single-chip/dev box use --cpu to measure over the virtual CPU mesh
+relative to D=1 (rows/s/device ratio). On a multi-GPU host run as-is;
+on a single-GPU/dev box use --cpu to measure over the virtual CPU mesh
 (validates the collective layout, not silicon speed).
 
 Usage:
@@ -118,10 +118,11 @@ def main():
         "per_device_raw": {str(D): round(e, 3) for D, e in raw.items()},
         "max_devices_efficiency": round(effs[results[-1][0]], 3),
         "total_throughput_retention_at_max_dev": round(retention, 3),
-        # provenance (VERDICT r4 #5): the shipped TPU numerics are the
-        # Ozaki-exact Gram + fast solve; force with GPZ_OZAKI=1 on CPU
+        # provenance: the numerics path the objective took (GPZ_OZAKI=1
+        # forces the Ozaki Gram)
         "provenance": {
-            "backend": jax.default_backend(),
+            "platform": jax.devices()[0].platform,
+            "device_kind": jax.devices()[0].device_kind,
             "ozaki_gram_active": bool(ozaki_active()),
             "rows_per_device": args.rows,
             "m": args.m, "d": args.d, "method": args.method,
@@ -132,14 +133,15 @@ def main():
             "per-device efficiency is core-bounded; total-throughput "
             "retention isolates the collective-layout cost"
             if jax.default_backend() == "cpu" else
-            "real multi-chip mesh: per_device is the headline"
+            "real multi-device mesh: per_device is the headline"
         ),
     }
     print(json.dumps(summary))
     out_file = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        os.environ.get("GPZ_SCALING_OUT", "SCALING_r05.json"),
+        os.environ.get("GPZ_SCALING_OUT", "chiprun_out/scaling.json"),
     )
+    os.makedirs(os.path.dirname(out_file), exist_ok=True)
     with open(out_file, "w") as fh:
         json.dump(summary, fh, indent=1)
 

@@ -15,6 +15,29 @@ METHODS = ("GL", "VL", "GD", "VD", "GC", "VC")
 #: methods with full (d x d) covariance per basis — the 'C' family
 FULL_COV_METHODS = ("GC", "VC")
 
+#: solve_mode="auto" per platform. Both CPU and GPU have float64 in hardware,
+#: so the n-reductions accumulate directly in float64; on the H100 this beat
+#: the mixed Ozaki/fast-solve path per objective+gradient eval (PRECISION.md
+#: "GPU numerics path").
+AUTO_SOLVE_MODE = {"cpu": "strict", "gpu": "strict"}
+
+
+def platform() -> str:
+    """The default JAX backend's platform, which must be "cpu" or "gpu".
+
+    Every platform-dependent default (AUTO_SOLVE_MODE, the Ozaki Gram gate in
+    objective.py) is keyed by this name; an unknown platform raises instead
+    of silently taking some other platform's numerics."""
+    import jax
+
+    name = jax.default_backend()
+    if name not in AUTO_SOLVE_MODE:
+        raise RuntimeError(
+            f"unsupported JAX platform {name!r}: gpz_tpu runs on "
+            f"{sorted(AUTO_SOLVE_MODE)}"
+        )
+    return name
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -29,7 +52,7 @@ class ModelConfig:
     method: str = "VL"          # one of GL/VL/GD/VD/GC/VC
     heteroscedastic: bool = True
     normalize: bool = True
-    dtype: str = "float32"      # compute dtype ("float32" on TPU, "float64" for parity tests)
+    dtype: str = "float32"      # compute dtype ("float64" for parity tests)
     # dtype of the REDUCED quantities (Gram, rhs, every scalar evidence term):
     # "auto" resolves to float64 when jax x64 is enabled, float32 otherwise.
     # The objective VALUE benefits from resolving differences below float32
@@ -37,15 +60,13 @@ class ModelConfig:
     # progTol=1e-9); see `solve_mode` for HOW the f64 quantities are obtained.
     solve_dtype: str = "auto"
     # How the n-reductions are computed (the m x m factorization and solves
-    # ALWAYS run in solve_dtype — a round-2 f32-factor-plus-refinement scheme
+    # ALWAYS run in solve_dtype — an f32-factor-plus-one-refinement scheme
     # broke down at cond(SIGMA) ~ 1/eps_f32 mid-training; see the note in
     # objective._gram_terms and PRECISION.md):
     #   "strict" — accumulate the n-contractions directly in solve_dtype
-    #              (native f64 on CPU; emulated and ~13x slower end-to-end on
-    #              TPU — round 1 shipped this and failed its perf budget,
-    #              VERDICT r1 item 1),
-    #   "mixed"  — per-block f32 partial Gram on the MXU (precision=HIGHEST)
-    #              with cross-block accumulation in solve_dtype. Per-entry
+    #              (native float64 on CPU and GPU),
+    #   "mixed"  — per-block f32 partial Gram (precision=HIGHEST) with
+    #              cross-block accumulation in solve_dtype. Per-entry
     #              error ~sqrt(block) * eps_f32 independent of n; measured
     #              agreement with strict recorded in PRECISION.md.
     #   "mixed_strict" — mixed Gram reductions but the m x m solve PINNED to
@@ -53,9 +74,8 @@ class ModelConfig:
     #              attempt). train() selects this when its x0 probe finds
     #              the fast solve would fall back at the starting iterate —
     #              late-training Grams (cond ~ 1e9) otherwise pay the failed
-    #              fast attempt PLUS the strict fallback on every eval
-    #              (VERDICT r4 #2).
-    #   "auto"   — "strict" on CPU, "mixed" on accelerators.
+    #              fast attempt PLUS the strict fallback on every eval.
+    #   "auto"   — per platform, from AUTO_SOLVE_MODE.
     solve_mode: str = "auto"
 
     def __post_init__(self):
@@ -77,13 +97,10 @@ class ModelConfig:
         return "float64" if jax.config.jax_enable_x64 else "float32"
 
     def resolved_solve_mode(self) -> str:
-        """Concrete solve mode ("auto" picks by backend: CPU has native f64,
-        accelerators emulate it and want the blockwise mixed scheme)."""
+        """Concrete solve mode ("auto" picks by platform, AUTO_SOLVE_MODE)."""
         if self.solve_mode != "auto":
             return self.solve_mode
-        import jax
-
-        return "strict" if jax.default_backend() == "cpu" else "mixed"
+        return AUTO_SOLVE_MODE[platform()]
 
     @property
     def full_cov(self) -> bool:
@@ -131,15 +148,16 @@ class TrainConfig:
     c2: float = 0.9
     max_ls: int = 25
     verbose: bool = True
-    # Two-phase precision schedule ("auto" | "on" | "off"). The fast mixed
-    # objective's blockwise-f32 Gram carries ~5e-6 relative entry error;
-    # late in training cond(SIGMA) amplifies that into O(1e-2) objective
-    # jaggedness and the line search correctly stalls well above the true
+    # Two-phase precision schedule ("auto" | "on" | "off"). A float32
+    # design matrix (and, in mixed mode, the blockwise-f32 Gram's ~5e-6
+    # relative entry error) puts a rounding floor under the objective;
+    # late in training cond(SIGMA) amplifies it into O(1e-2) objective
+    # jaggedness and the line search correctly stalls above the true
     # optimum (measured on the VC m=100 n=70k north star: mixed floors at
     # nlml -1.86 where strict continues to descend smoothly). "auto"/"on"
-    # continue a stalled mixed run with the strict objective from the same
-    # iterate — most of the descent happens in the cheap mixed phase, and
-    # only the endgame pays the emulated-f64 Gram cost.
+    # continue a stalled float32 run with the float64 objective from the
+    # same iterate — most of the descent happens in the cheap float32
+    # phase, and only the endgame pays for float64 end to end.
     refine: str = "auto"
     # Noise-floor patience for the NON-FINAL mixed phase (only applied when
     # `refine` will escalate to float64 afterwards — the final phase always
@@ -149,12 +167,9 @@ class TrainConfig:
     # grinding rounding jaggedness the line search cannot resolve, and
     # every further iteration both wastes wall clock AND can walk the
     # iterate into basins the f64 endgame then escapes via expensive
-    # requantized restarts. Measured on the north star (round 5,
-    # PRECISION.md §9): the shipped defaults do NOT fire there — the mixed
-    # phase keeps descending >= 1e-3/10 iterations to its hard stall — so
-    # they exist as a guard for genuinely glacial phases, not as an active
-    # part of the shipped trajectory. patience=0 statically removes the
-    # check from the compiled loop.
+    # requantized restarts. The defaults are a guard for genuinely glacial
+    # phases, not an active part of a typical trajectory. patience=0
+    # statically removes the check from the compiled loop.
     phase_patience: int = 10
     phase_patience_tol: float = 2e-4
 

@@ -1,6 +1,6 @@
 """Numerics substrate: robust PSD solves, masked moments, distances.
 
-TPU-native replacements for the reference's numeric utilities:
+Static-shape replacements for the reference's numeric utilities:
   * `inv_logdet_psd` / `solve_psd` — Cholesky with escalating jitter replaces
     the SVD pseudo-inverse of ref GPz/inv_logdet.m:3-15
   * `dxy` — squared-distance matrix, ref GPz/Dxy.m:3-7
@@ -29,8 +29,9 @@ def safe_cholesky(A: jax.Array) -> jax.Array:
     """Cholesky of PSD `A` (batched, [..., n, n]) with escalating jitter.
 
     Fast path: ONE factorization at zero jitter (the Gram is PD by
-    construction, so this is the overwhelmingly common case — round 1's
-    8-unconditional-probes design cost 43 ms/eval in f64 on TPU). On failure a
+    construction, so this is the overwhelmingly common case; factoring at
+    every jitter level unconditionally would cost 7 extra factorizations
+    per eval). On failure a
     `lax.while_loop` escalates the jitter on a gradient-stopped copy until the
     factorization is finite, and one clean differentiable factorization is
     taken at that level. If every level fails, NaNs propagate and the
@@ -93,12 +94,11 @@ def solve_w_logdet(SIGMA: jax.Array, rhs: jax.Array):
     SIGMA (k, m, m); rhs (m, k). Returns w (m, k), logdet (k,).
 
     Exists for its VJP: reverse-mode AD through cholesky / triangular-solve
-    lowers to plain f64 matmuls inside the decomposition VJP rules, and the
-    TPU backend computes those at float32 accuracy (PRECISION.md §3) — the
-    resulting gradient jag, kappa-amplified late in training, stalled the
-    f64 refine phase at iteration ~9 with the objective still descending.
-    The closed-form cotangents below use ONLY triangular solves and
-    elementwise outer products (both true f64 on this backend):
+    lowers to plain f64 matmuls inside the decomposition VJP rules; on a
+    machine whose f64 dot is not f64-accurate, that gradient jag,
+    kappa-amplified late in training, stalls the f64 refine phase. The
+    closed-form cotangents below use ONLY triangular solves and
+    elementwise outer products:
 
         dw/d(rhs)   ^T c = SIGMA^-1 c
         dw/d(SIGMA) ^T c = -sym_outer(SIGMA^-1 c, w)
@@ -144,16 +144,17 @@ solve_w_logdet.defvjp(_solve_w_logdet_fwd, _solve_w_logdet_bwd)
 # fast mixed-mode solve: f32 factor + exact-residual iterative refinement
 # ---------------------------------------------------------------------------
 #
-# The TPU backend emulates f64: a (100, 100) f64 Cholesky costs 5.5 ms vs
-# 0.16 ms in f32 (measured; ~30% of the whole mixed objective eval). The
-# mixed phase therefore solves through an f32 factor of the Jacobi-
-# equilibrated Gram C = D^-1 SIGMA D^-1 (unit diagonal — GPz's wildly
-# varying alpha/beta diagonal is most of cond(SIGMA), measured 8.5e8 at
-# iteration 60 of the north-star run), refined back to ~f64 accuracy by
-# iterative refinement whose residuals are computed with Ozaki slice
-# products (ops/ozaki.py — an f64 dot here would be f32-grade and IR would
-# stagnate at kappa * 3.6e-8). Each IR step contracts the error by
-# ~kappa(C) * eps_f32; three steps reach ~1e-9 for kappa(C) up to ~1e5.
+# For a machine without fast float64 (reached with solve_mode="mixed" and
+# the Ozaki Gram, objective._ozaki_active), where an f64 Cholesky costs far
+# more than an f32 one. The mixed phase then solves through an f32 factor
+# of the Jacobi-equilibrated Gram C = D^-1 SIGMA D^-1 (unit diagonal —
+# GPz's wildly varying alpha/beta diagonal is most of cond(SIGMA), measured
+# 8.5e8 at iteration 60 of the north-star run), refined back to ~f64
+# accuracy by iterative refinement whose residuals are computed with Ozaki
+# slice products (ops/ozaki.py — on such a machine an f64 dot would be
+# f32-grade and IR would stagnate at kappa * eps_f32). Each IR step
+# contracts the error by ~kappa(C) * eps_f32; three steps reach ~1e-9 for
+# kappa(C) up to ~1e5.
 # If the final residual says otherwise (kappa(C) too large, or a non-finite
 # trial point), a lax.cond falls back to the strict f64 factorization at
 # runtime, so the fast path never silently degrades the objective.
@@ -288,11 +289,12 @@ def inv_logdet_psd(A: jax.Array):
 def unrolled_cholesky(A: jax.Array) -> jax.Array:
     """Cholesky for huge batches of TINY (d x d) matrices, d static.
 
-    XLA:TPU lowers batched lax.linalg.cholesky/triangular_solve to scalar
-    loops that run ~50x slower than peak for d ~ 5. Unrolling over the small
-    static d turns the factorization into ~d^3/6 fused elementwise VPU ops
-    over the batch — this is the hot op of the full-covariance (GC/VC) family
-    (SURVEY §3.2: the per-sample loop of getPHI.m:80-88 becomes this).
+    Batched lax.linalg.cholesky/triangular_solve on millions of d ~ 5
+    matrices lower to per-matrix library calls or scalar loops. Unrolling
+    over the small static d turns the factorization into ~d^3/6 fused
+    elementwise ops over the batch — this is the hot op of the
+    full-covariance (GC/VC) family (SURVEY §3.2: the per-sample loop of
+    getPHI.m:80-88 becomes this).
     Non-PD inputs produce NaNs exactly like lax.linalg.cholesky.
     """
     d = A.shape[-1]
@@ -370,7 +372,7 @@ def unrolled_inv_psd(A: jax.Array, unroll_max: int = 8):
 def quad_logdet_psd(A: jax.Array, delta: jax.Array, unroll_max: int = 8):
     """(delta^T A^-1 delta, log|A|) for batched PSD A [..., d, d].
 
-    Uses the unrolled VPU path for small d, lax.linalg otherwise.
+    Uses the unrolled elementwise path for small d, lax.linalg otherwise.
     """
     d = A.shape[-1]
     if d <= unroll_max:

@@ -1,7 +1,7 @@
 // Native host-side kernels — C++ equivalents of the reference's MEX layer
 // (ref minFunc/mex/lbfgsProdC.c, lbfgsAddC.c, lbfgsC.c, mcholC.c).
 //
-// The TPU training path runs the two-loop recursion on device
+// The device training path runs the two-loop recursion on device
 // (gpz_tpu/optim/lbfgs.py); these kernels back the host-resident optimizer
 // used for small problems and for driving external objectives without
 // device round-trips, plus the Gill–Murray modified Cholesky used by the

@@ -46,6 +46,9 @@ from gpz_tpu.linalg import (
 from gpz_tpu.ops.ozaki import ozaki_gram, ozaki_tn
 
 _LN2PI = math.log(2.0 * math.pi)
+#: f32 contractions that feed the objective run at full f32 (a GPU may
+#: otherwise run them in TF32, which keeps ~3 decimal digits)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_dataclass
@@ -78,7 +81,7 @@ def _reducer(axis_name: Optional[str]):
 
 
 #: row-block size of the mixed-mode Gram accumulation (env GPZ_GRAM_BLOCK):
-#: per-block partial sums run as f32 MXU matmuls, blocks are summed in
+#: per-block partial sums run as f32 matmuls, blocks are summed in
 #: solve_dtype, so the f32 accumulation error stays ~sqrt(block) * eps
 #: regardless of n.
 import os as _os
@@ -86,47 +89,48 @@ import os as _os
 GRAM_BLOCK = int(_os.environ.get("GPZ_GRAM_BLOCK", "8192"))
 
 #: rows per Ozaki-Gram accumulation chunk (env GPZ_OZAKI_CHUNK): above this,
-#: the exact-MXU Gram runs as a rematerialized scan over row chunks so the
-#: bf16 slice copies stay O(chunk * m) instead of O(n * m) — required at the
-#: 1M x 1000 scale target (BASELINE configs[4])
+#: the slice-product Gram runs as a rematerialized scan over row chunks so
+#: the bf16 slice copies stay O(chunk * m) instead of O(n * m) — required at
+#: the 1M x 1000 scale target (BASELINE configs[4])
 OZAKI_CHUNK = int(_os.environ.get("GPZ_OZAKI_CHUNK", str(128 * 1024)))
+
+#: Ozaki slice-product Gram (ops/ozaki.py) per platform: off on both, since
+#: CPU and GPU contract natively in float64 (PRECISION.md "GPU numerics
+#: path" has the on-card A/B)
+OZAKI_DEFAULT = {"cpu": False, "gpu": False}
 
 
 def _ozaki_active() -> bool:
-    """Use the exact-MXU Gram path (ops/ozaki.py)? Default: every non-CPU
-    backend (CPU's native f64 dot is already exact AND faster than slice
-    products there). Env GPZ_OZAKI=1/0 forces it either way (tests force 1
-    on the CPU backend to exercise the shipped-TPU code path)."""
+    """Use the Ozaki slice-product Gram path (ops/ozaki.py)? Default per
+    platform from OZAKI_DEFAULT (an unknown platform raises). Env
+    GPZ_OZAKI=1/0 forces it either way (tests force 1 to exercise the
+    path, which stays reachable with solve_mode="mixed")."""
     env = _os.environ.get("GPZ_OZAKI")
     if env is not None:
         return env == "1"
-    return jax.default_backend() != "cpu"
+    from gpz_tpu.config import platform
+
+    return OZAKI_DEFAULT[platform()]
 
 
 def _gram_reductions(PHI, ob, Y, sdt, r, mode: str):
     """The three n-reductions of the objective — Gram A, rhs, sum ob*y^2 —
     in solve_dtype (ref GPz.m:63-75; psum boundary of the n-sharded path).
 
-    strict: accumulate the whole contraction in solve_dtype. Exact, native on
-    CPU; on TPU the f64 contraction is emulated over all n (61 ms fwd /
-    129 ms grad at n=100k, m=100 — the round-1 perf failure).
+    strict: accumulate the whole contraction in solve_dtype (native float64
+    on CPU and GPU).
 
-    mixed: per-block f32 partials on the MXU (precision=HIGHEST so inputs are
-    not rounded to bf16), cross-block accumulation in solve_dtype (1.9 ms fwd
-    / 1.6 ms grad at the same shape). Entry-level error ~sqrt(B)*eps_f32,
-    independent of n.
+    mixed: per-block f32 partials (precision=HIGHEST so inputs are not
+    rounded to bf16/TF32), cross-block accumulation in solve_dtype.
+    Entry-level error ~sqrt(B)*eps_f32, independent of n.
     """
     if _ozaki_active():
-        # Ozaki-scheme exact contractions on the bf16 MXU (ops/ozaki.py):
-        # the backend's f64 dot — and the 3-arg einsum, and any
-        # multiply+sum XLA rewrites into a dot — is f32-grade (measured
-        # 2.5e-7 on this Gram at n=70k; PRECISION.md §3-4), which
-        # cond(SIGMA)~1e9 amplifies into O(1e-2) objective jag late in
-        # training. strict: f64 factors, Gram exact to ~1e-14 and 11x
-        # faster than the einsum it replaces. mixed: f32 factors, the
-        # Gram is exact *given the f32 design matrix* — the error floor
-        # drops from ~5e-6 (blockwise f32 accumulation) to PHI's own
-        # ~6e-8 rounding.
+        # Ozaki-scheme contractions from bf16 slice products with f32
+        # accumulation (ops/ozaki.py) — for a machine whose f64 dot is not
+        # f64-accurate. strict: f64 factors, Gram exact to ~1e-14. mixed:
+        # f32 factors, the Gram is exact *given the f32 design matrix* —
+        # the error floor drops from ~5e-6 (blockwise f32 accumulation) to
+        # PHI's own ~6e-8 rounding.
         ft = sdt if mode == "strict" else PHI.dtype
         P = PHI.astype(ft)
         obf = ob.astype(ft)
@@ -177,9 +181,8 @@ def _gram_reductions(PHI, ob, Y, sdt, r, mode: str):
     if mode == "strict":
         A = r(jnp.einsum("nm,nk,nj->kmj", PHI, ob, PHI,
                          preferred_element_type=sdt))
-        # multiply+sum, NOT a 2-arg einsum: the TPU backend's f64 dot is
-        # f32-grade (measured rel err 3.6e-8; the 3-arg form above lowers to
-        # the accurate elementwise path, measured 7e-15)
+        # the rhs as an elementwise multiply+sum in solve_dtype (k is 1 or
+        # a few, so the (n, m, k) product is the size of PHI itself)
         oy = (ob * Y).astype(sdt)
         rhs = r(jnp.sum(PHI.astype(sdt)[:, :, None] * oy[:, None, :], axis=0))
         obyy = r(jnp.sum(ob * Y * Y, axis=0, dtype=sdt))
@@ -233,10 +236,10 @@ def _gram_terms(
     SIGMA = A + jax.vmap(jnp.diag)(alpha.T)              # (k, m, m)
 
     # The factorization and solves always run in solve_dtype — in mixed mode
-    # the Gram is already f64 (blockwise f32 MXU partials, f64 cross-block
-    # sums), and the (k, m, m) factor is tiny (~7 ms emulated f64 on TPU at
-    # (1, 100, 100)) next to the O(n m d^2) forward. Round 2 factored in f32
-    # with one f64 iterative-refinement step; that breaks down mid-training:
+    # the Gram is already f64 (blockwise f32 partials, f64 cross-block
+    # sums), and the (k, m, m) factor is tiny next to the O(n m d^2)
+    # forward. Factoring in f32 with one f64 iterative-refinement step
+    # breaks down mid-training:
     # once cond(SIGMA) approaches 1/eps_f32 (~1e7 — alpha/beta grow as the
     # fit sharpens), the refined w is garbage, and the objective VALUE picks
     # up deterministic O(1e-1) discontinuities (measured on the VC m=100
@@ -245,16 +248,13 @@ def _gram_terms(
     # direction at steps of 1e-6). The line search then correctly concludes
     # no improving step exists and training stalls at a premature nlml.
     # solve_w_logdet carries a custom VJP built from triangular solves and
-    # outer products only: the stock cholesky/solve VJP rules emit plain f64
-    # matmuls, which this TPU backend computes at f32 accuracy
-    # (PRECISION.md §3) — gradient jag that stalled the f64 endgame at
-    # iteration ~9 with the objective still descending.
+    # outer products only (no f64 matmuls in the cotangent; see its
+    # docstring).
     if mode == "mixed" and _ozaki_active():
-        # mixed phase on an emulated-f64 backend: a (100,100) f64 Cholesky
-        # costs 5.5 ms (vs 0.16 f32) — ~30% of the whole eval. Equilibrated
-        # f32 factor + Ozaki-exact iterative refinement reaches the same
-        # ~f64 solve accuracy with a runtime fallback to the strict factor
-        # when cond(C) defeats refinement (linalg.fast_solve_w_logdet).
+        # mixed phase with the Ozaki Gram: equilibrated f32 factor +
+        # slice-product iterative refinement reaches ~f64 solve accuracy,
+        # with a runtime fallback to the strict factor when cond(C) defeats
+        # refinement (linalg.fast_solve_w_logdet).
         w, logdet = fast_solve_w_logdet(SIGMA, rhs)
     else:
         w, logdet = solve_w_logdet(SIGMA, rhs)       # (m, k), (k,)
@@ -332,7 +332,7 @@ def nlog_ml(
     # train metrics (ref GPz.m:236-237), explicit instead of globals.
     # delta is metrics-only, so the (n, k) residual stays in the compute
     # dtype; only the scalar accumulations happen in solve_dtype.
-    delta = PHI @ w.astype(PHI.dtype) - data.Y           # (n, k)
+    delta = jnp.matmul(PHI, w.astype(PHI.dtype), precision=_HIGHEST) - data.Y
     train_rmse = jnp.sqrt(
         r(jnp.sum(data.omega[:, None] * delta**2, dtype=sdt)) / (n_eff * k)
     )
@@ -348,7 +348,7 @@ def nlog_ml(
 
 
 def ozaki_active() -> bool:
-    """Public alias of the exact-MXU Gram gate (see _ozaki_active)."""
+    """Public alias of the Ozaki Gram gate (see _ozaki_active)."""
     return _ozaki_active()
 
 
@@ -362,11 +362,10 @@ def probe_phase(
 
     A continuation/trained iterate can sit beyond the f32 pipeline's
     representable regime: at the trained photo-z point (cond(iSig) ~ 3e9),
-    1% of the f32 design-matrix factorizations go NaN ON THE TPU BACKEND
-    (CPU f32 survives by rounding luck), which NaNs ln_beta, the Gram, and
-    the whole objective — and every safe_cholesky then walks its full
-    jitter-escalation ladder (~8 factorizations/eval, measured 46 ms
-    against 0.2 ms for a clean f32 factor). Separately, a finite but
+    a few of the f32 design-matrix factorizations can go NaN (depending on
+    the backend's rounding), which NaNs ln_beta, the Gram, and the whole
+    objective — and every safe_cholesky then walks its full
+    jitter-escalation ladder (~8 factorizations/eval). Separately, a finite but
     ill-conditioned Gram makes the equilibrated-f32 fast solve fall back
     to the strict factor on EVERY eval, paying both (VERDICT r4 #2).
 
@@ -403,7 +402,7 @@ def posterior(
     m = cfg.m
     eye = jnp.broadcast_to(jnp.eye(m, dtype=SIGMA.dtype), (cfg.k, m, m))
     iSigma_w = chol_solve(safe_cholesky(SIGMA), eye)
-    # stored posterior state feeds the (f32, Pallas-tiled) prediction stack —
+    # stored posterior state feeds the (f32) prediction stack —
     # cast back to the compute dtype
     dt = jnp.dtype(cfg.dtype)
     return Posterior(w=w.astype(dt), iSigma_w=iSigma_w.astype(dt),
@@ -433,10 +432,9 @@ def holdout_metrics(
     r = _reducer(axis_name)
     PHI, _, ln_beta = design_matrix(params, cfg, data.X, data.mask, data.psi, complete)
     beta = jnp.exp(-ln_beta)
-    # the residual stays in the compute dtype (an f64 (n, m) @ (m, k) here
-    # would emulate a full f64 matmul on TPU every scoring iteration); only
+    # the residual stays in the compute dtype (full f32, never TF32); only
     # the scalar accumulations happen in solve_dtype.
-    delta = PHI @ w.astype(PHI.dtype) - data.Y           # (n, k)
+    delta = jnp.matmul(PHI, w.astype(PHI.dtype), precision=_HIGHEST) - data.Y
     k = cfg.k
     rmse = jnp.sqrt(
         r(jnp.sum(data.omega[:, None] * delta**2, dtype=sdt)) / (n_eff * k)

@@ -1,3 +1,3 @@
-from gpz_tpu.ops.vc_phi import vc_lnphi_complete, pallas_enabled
+from gpz_tpu.ops.ozaki import ozaki_gram, ozaki_tn
 
-__all__ = ["vc_lnphi_complete", "pallas_enabled"]
+__all__ = ["ozaki_gram", "ozaki_tn"]

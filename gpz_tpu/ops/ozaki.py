@@ -1,36 +1,30 @@
-"""Ozaki-scheme matmuls: true-float64 contractions on the bf16 MXU.
+"""Ozaki-scheme matmuls: float64-accurate contractions from bf16 products.
 
-The TPU backend has no native float64 ALU. XLA emulates f64 *elementwise*
-arithmetic well (measured ~1e-14, PRECISION.md §3), but every f64 *dot* —
-including `jnp.einsum(..., preferred_element_type=f64)` and any
-multiply+sum that XLA pattern-matches back into a dot — is computed at
-float32 grade (measured 2.5e-7 relative on the north-star Gram at n=70k).
-Late in GPz training cond(SIGMA) reaches ~1e9, which amplifies that 2.5e-7
-Gram jitter into O(1e-2) objective error: the f64 refine phase stalls at a
-premature optimum (round-3 session; see PRECISION.md §4).
-
-This module computes exact-to-~1e-14 f64 contractions *on the MXU* using
-the error-free splitting of Ozaki et al. (accurate matmul by slicing into
-low-mantissa pieces; the same scheme ozIMMU/ozaki-scheme GEMM libraries use
-on f16/int8 tensor cores — here mapped onto the TPU's native bf16 MXU):
+For a machine whose float64 dot is not float64-accurate (or not fast), this
+module computes f64 contractions exact to ~1e-14 from bf16 matrix products
+with float32 accumulation, using the error-free splitting of Ozaki et al.
+(accurate matmul by slicing into low-mantissa pieces; the same scheme the
+ozIMMU/ozaki-scheme GEMM libraries use on f16/int8 tensor cores):
 
   1. Each factor column is written as a sum of Q slices of S=7 significant
      bits, aligned to one power-of-two grid per (row-block, column):
      t_i = round(r / g_i) * g_i, r <- r - t_i, g_{i+1} = g_i * 2^-S.
      Every slice is exactly representable in bfloat16 (8-bit significand).
-  2. A slice-pair product has <= 2S+2 significant bits, so an MXU matmul of
-     a row block of B <= 2^(24-2S-2) rows accumulates it EXACTLY in the
-     MXU's float32 accumulator (no rounding at all).
-  3. The exact per-block, per-slice-pair partials are summed in f64
-     (elementwise adds — accurately emulated). Slice pairs with
-     i + j >= Q contribute below 2^(-S*Q) relative and are dropped.
+  2. A slice-pair product has <= 2S+2 significant bits, so a matmul of a
+     row block of B <= 2^(24-2S-2) rows accumulates it EXACTLY in a float32
+     accumulator — provided the hardware accumulates bf16 products in (at
+     least) float32 without intermediate rounding. That is a property of
+     the matrix unit, not of this code; `chip_smoke.py` checks it on the
+     card it runs on.
+  3. The exact per-block, per-slice-pair partials are summed in f64.
+     Slice pairs with i + j >= Q contribute below 2^(-S*Q) relative and
+     are dropped.
 
 Cost: ~Q(Q+1)/2 bf16 matmuls (f64 inputs: Q=8 -> 20 matmuls exploiting Gram
-symmetry; f32 inputs: Q=4 -> 6) — measured 4.3 ms for the (70000, 100) Gram
-vs 48 ms (and 2.5e-7 error) for the einsum it replaces: 11x faster AND
-seven orders of magnitude more accurate. Reference anchor: the Gram
-accumulation PHI' * diag(beta) * PHI of ref GPz/GPz.m:63-65, which MATLAB
-computes in native f64.
+symmetry; f32 inputs: Q=5 -> 9). CPU and GPU contract natively in float64, so
+the objective uses this path only when asked (objective._ozaki_active).
+Reference anchor: the Gram accumulation PHI' * diag(beta) * PHI of ref
+GPz/GPz.m:63-65, which MATLAB computes in native f64.
 """
 
 from __future__ import annotations
@@ -42,11 +36,11 @@ import jax.numpy as jnp
 
 #: significant bits per slice; products have 2S+2 bits (slice integers reach
 #: +-2^S at the top slice after a conservative sigma), so block rows must
-#: satisfy 2S + 2 + log2(B) <= 24 for exact f32 MXU accumulation
+#: satisfy 2S + 2 + log2(B) <= 24 for exact f32 accumulation
 _S = 7
-#: rows per MXU accumulation block: 16 + log2(2048) = 27?? -> see note below.
-#: With S=7 the slice integers are <= 65 (<2^7), products <= 65^2 < 2^13, so
-#: exactness needs 13 + log2(B) <= 24 -> B <= 2048.
+#: rows per f32 accumulation block: with S=7 the slice integers are <= 65
+#: (<2^7), products <= 65^2 < 2^13, so exactness needs 13 + log2(B) <= 24
+#: -> B <= 2048.
 _BLOCK = 2048
 
 
@@ -124,7 +118,7 @@ def _tn_impl(X, Y, block):
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(1,))
 def ozaki_gram(W, block=_BLOCK):
-    """W^T W in float64 to ~1e-14, via exact bf16 MXU slice products.
+    """W^T W in float64 to ~1e-14, via exact bf16 slice products.
 
     W: (n, m) float64 or float32. The result is the *exact* Gram of the
     stored W (to the dropped-tail ~2^-56 / ~2^-28), not of some rounded
@@ -140,7 +134,7 @@ def _gram_fwd(W, block):
 def _mm(X, M, block):
     """X (n, a) @ M (a, b) at the accuracy of X's dtype: exact slice
     products for f64 (a plain f64 dot would reintroduce the f32-grade jag);
-    one HIGHEST-precision MXU matmul for f32 (the f32 path's error floor is
+    one HIGHEST-precision matmul for f32 (the f32 path's error floor is
     the f32 inputs themselves — slice products would cost 9 matmuls + an
     extraction sweep for accuracy the cotangent can't use)."""
     if jnp.dtype(X.dtype) == jnp.float64:

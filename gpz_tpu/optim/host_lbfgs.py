@@ -1,7 +1,7 @@
 """Host-resident L-BFGS — the minFunc-equivalent for arbitrary Python
 objectives (ref minFunc/minFunc.m L-BFGS path + WolfeLineSearch.m).
 
-The TPU training path uses the fully jitted optimizer (optim/lbfgs.py); this
+The device training path uses the fully jitted optimizer (optim/lbfgs.py); this
 one drives objectives that live on the host (NumPy models, external
 simulators, scipy-style callables) with the hot kernels — two-loop recursion
 and in-place curvature insertion — in native C++ (gpz_tpu.native, parity with

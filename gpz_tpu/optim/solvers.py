@@ -27,7 +27,7 @@ objectives (NumPy models, posterior diagnostics, small calibration fits):
 All methods share the strong-Wolfe / Armijo line searches and the
 optTol/progTol termination rules of the reference driver
 (ref minFunc.m:96-97,963,1118-1147). This is deliberately a *host*
-component — the TPU training path is the jitted optimizer in
+component — the device training path is the jitted optimizer in
 optim/lbfgs.py; these exist for reference parity and for objectives that
 cannot be traced.
 """

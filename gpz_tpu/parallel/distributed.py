@@ -3,12 +3,13 @@
 The reference is single-process (SURVEY §2.3: no distributed backend at all).
 Here, multi-host runs use jax.distributed + the same (restart, data) mesh:
 each host initializes the runtime, loads only its row range of the catalog,
-and the SPMD objective's psums ride ICI within a slice and DCN across hosts.
+and the SPMD objective's psums ride NVLink within a host and the network
+across hosts.
 
 Typical multi-host entry:
 
     from gpz_tpu.parallel import distributed as dist
-    dist.initialize()                       # env-driven (TPU pods) or explicit
+    dist.initialize(addr, n_hosts, host_id)  # or env-driven where JAX detects a cluster
     mesh = make_mesh()                      # all global devices
     lo, hi = dist.host_row_range(n_total)
     X_local = load_rows(path, lo, hi)       # native CSV reader w/ skip_rows
@@ -35,8 +36,9 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize jax.distributed. On TPU pods all arguments are discovered
-    from the environment; pass them explicitly elsewhere. Idempotent.
+    """Initialize jax.distributed. Where JAX detects a cluster environment
+    the arguments are discovered from it; pass them explicitly elsewhere
+    (e.g. coordinator_address="localhost:<port>" on one machine). Idempotent.
 
     Must run before the first backend touch — NOTE the idempotence probe
     deliberately uses jax.distributed.is_initialized(), not

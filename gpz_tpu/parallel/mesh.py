@@ -2,14 +2,14 @@
 
 The framework's mesh has two axes (SURVEY §2.3 / §5):
   * `data`    — the sample axis n is sharded here; the objective's Gram,
-                rhs, and scalar reductions psum over it (riding ICI within a
-                slice, DCN across hosts)
+                rhs, and scalar reductions psum over it (NVLink within a
+                host, the network across hosts)
   * `restart` — independent random restarts / posterior chains (the GPz
                 analogue of ensemble/expert parallelism); parameters are
                 sharded here, data is replicated
 
 The reference has no parallelism of any kind (single MATLAB process); this
-layer is the net-new TPU-native subsystem.
+layer is the net-new device-parallel subsystem.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def make_mesh(
     """Create a (restart, data) mesh over the available devices.
 
     With n_data=None, all devices not consumed by the restart axis go to the
-    data axis. Works identically on a real TPU slice and on a
+    data axis. Works identically on the GPUs of a host and on a
     --xla_force_host_platform_device_count CPU mesh.
     """
     devices = list(devices if devices is not None else jax.devices())

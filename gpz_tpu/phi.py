@@ -74,9 +74,9 @@ def _log_phi_diag(params, cfg, X, mask, psi):
 
     Delta = X[:, None, :] - P[None, :, :]    # (n, m, d)
     fm3 = fmask[:, None, :]                  # (n, 1, d)
-    # NB: these reductions are written as multiply+sum, NOT einsum — XLA:TPU
-    # lowers einsum contractions over tiny axes (d ~ 1-10) to batched dots
-    # whose compile time explodes (minutes for d=1)
+    # these reductions over the tiny d axis (1-10) are written as
+    # multiply+sum, not einsum: they fuse into one elementwise kernel
+    # instead of becoming batched dots with a contraction of length d
     log_sigma_obs = jnp.sum(jnp.log(Sigma)[None, :, :] * fm3, axis=-1)
 
     if psi is None:
@@ -101,19 +101,9 @@ def _log_phi_diag(params, cfg, X, mask, psi):
 
 
 #: row-block size for the full-covariance per-sample (B, m, d, d) Cholesky
-#: pass; bounds the HBM working set (B * m * d^2 elements) regardless of n
+#: pass; bounds the device-memory working set (B * m * d^2 elements)
+#: regardless of n
 PHI_BLOCK_ROWS = 4096
-
-
-def _use_vc_kernel(dtype, d: int, m: int) -> bool:
-    """Gate for the fused Pallas VC kernel: TPU backend, float32, small d
-    (the kernel holds ~2 d^2 live (row-tile, basis-tile) planes in VMEM;
-    the basis axis is tiled so m is unbounded)."""
-    if jnp.dtype(dtype) != jnp.float32 or d > 6:
-        return False
-    from gpz_tpu.ops.vc_phi import pallas_enabled
-
-    return pallas_enabled()
 
 
 def _log_phi_full(params, cfg, X, mask, psi, complete):
@@ -123,14 +113,11 @@ def _log_phi_full(params, cfg, X, mask, psi, complete):
     m = cfg.m
     fmask = mask.astype(X.dtype)
 
-    # Gamma^T Gamma (getPHI.m:73) as multiply+sum: tiny-axis einsum
-    # contractions compile pathologically on XLA:TPU, and the backend's f64
-    # dot is f32-grade (see design_matrix note)
+    # Gamma^T Gamma (getPHI.m:73) as multiply+sum over the tiny d axis
     iSig = jnp.sum(G[:, :, :, None] * G[:, :, None, :], axis=1)  # (m, d, d)
 
     if complete and psi is None:
-        # quad = |Gamma Delta|^2 — no inverse needed at all (multiply+sum,
-        # not einsum: tiny-axis contractions compile pathologically on TPU)
+        # quad = |Gamma Delta|^2 — no inverse needed at all
         Delta = X[:, None, :] - P[None, :, :]
         V = jnp.sum(G[None, :, :, :] * Delta[:, :, None, :], axis=-1)
         quad = jnp.sum(V * V, axis=-1)       # (n, m)
@@ -149,15 +136,6 @@ def _log_phi_full(params, cfg, X, mask, psi, complete):
     # Linv^T Linv, multiply+sum for the same reasons as iSig above
     Sigma = jnp.sum(Linv[:, :, :, None] * Linv[:, :, None, :], axis=1)
 
-    # fused Pallas kernel for the hot complete+psi case (TPU, f32, small d):
-    # everything stays in VMEM instead of materializing (n, m, d, d) in HBM
-    if complete and psi is not None and _use_vc_kernel(X.dtype, d, m):
-        from gpz_tpu.ops.vc_phi import vc_lnphi_complete
-
-        ln_phi = vc_lnphi_complete(X, psi, P, Sigma, logdet_Sigma)
-        ln_n = ln_phi - 0.5 * logdet_Sigma[None, :] - 0.5 * d * _LN2PI
-        return ln_phi, ln_n
-
     def block_fn(args):
         """Per-row-block (B, m, d, d) work; rematerialized in the backward
         pass (jax.checkpoint) so only (B, m) activations persist."""
@@ -168,7 +146,7 @@ def _log_phi_full(params, cfg, X, mask, psi, complete):
         Delta = (Xb[:, None, :] - P[None, :, :]) * fm[:, None, :]
 
         if psib is None:
-            # quad + logdet through Sigma_oo (tiny-d unrolled VPU path)
+            # quad + logdet through Sigma_oo (tiny-d unrolled elementwise path)
             Soo = masked_psd(Sigma[None, :, :, :], maskb[:, None, :])
             quad, logdet_Soo = quad_logdet_psd(Soo, Delta)
             ln_phi = -0.5 * quad - 0.5 * n_mis[:, None] * _LN2
@@ -240,15 +218,9 @@ def design_matrix(
     PHI = jnp.exp(ln_phi)
     ln_beta_i = jnp.broadcast_to(params.b[None, :], (X.shape[0], cfg.k))
     if params.heteroscedastic:
-        if jnp.dtype(PHI.dtype) == jnp.float64:
-            # the TPU backend's f64 dot is f32-grade (measured rel err
-            # 3.6e-8 vs 1e-14 for elementwise emulated-f64 ops) — jagged
-            # lnBeta at that level, kappa-amplified through the Gram, is
-            # what destabilized the f64 endgame. multiply+sum stays on the
-            # accurate VPU path; identical on CPU.
-            ln_beta_i = ln_beta_i + jnp.sum(
-                PHI[:, :, None] * params.v[None, :, :], axis=1
-            )
-        else:
-            ln_beta_i = ln_beta_i + PHI @ params.v
+        # HIGHEST: ln beta feeds the objective and sigma, so the f32
+        # contraction must not run in TF32 on a GPU
+        ln_beta_i = ln_beta_i + jnp.matmul(
+            PHI, params.v, precision=jax.lax.Precision.HIGHEST
+        )
     return PHI, ln_n, ln_beta_i

@@ -24,14 +24,12 @@ sums: nu = sum_ij E[phi_i phi_j] (Sigma_w^-1)_ij can be ~1e-6 while
 sum_ij |.| is ~10 (measured on the trained photo-z model, round 4), so f32
 *values* of the pair densities put an absolute noise floor of ~1e-4 under
 nu/gamma — which inflates sigma on exactly the most confident rows and
-costs ~0.4 nats of test MLL vs the reference's f64 pipeline (the round-3
-parity violation). The fix exploits what the TPU is good at: the
-ELEMENTWISE chain (quadratic forms, logdets, exp) runs in float64 — which
-XLA:TPU emulates accurately (~1e-14, PRECISION.md §3) — while the
-CONTRACTIONS against w/v/iSigma_w stay on the f32 MXU: with f64-accurate
-pair densities, an f32-grade contraction only contributes
-~eps_f32 * sum|terms| ~ 1e-6, two orders below what the band needs.
-Env GPZ_VARIANCE_DTYPE=float32 restores the all-f32 fast path.
+costs ~0.4 nats of test MLL vs the reference's f64 pipeline. So the
+ELEMENTWISE chain (quadratic forms, logdets, exp) runs in float64, while
+the CONTRACTIONS against w/v/iSigma_w stay in float32 at HIGHEST precision
+(never TF32): with f64-accurate pair densities, an f32 contraction only
+contributes ~eps_f32 * sum|terms| ~ 1e-6, two orders below what the band
+needs. Env GPZ_VARIANCE_DTYPE=float32 restores the all-f32 fast path.
 """
 
 from __future__ import annotations
@@ -52,6 +50,10 @@ from gpz_tpu.linalg import (
     quad_logdet_psd,
     unrolled_inv_psd,
 )
+
+
+#: the f32 contractions feed mu and sigma: full f32, never TF32 on a GPU
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _v_or_zero(params: GPzParams, cfg: ModelConfig):
@@ -82,11 +84,9 @@ PAIR_BUDGET = int(os.environ.get("GPZ_PAIR_BUDGET", str(3 * 10**7)))
 
 #: tighter element budget for the full-covariance MISSING path: its mixture
 #: scans (phi_step / ec_step over m components) run inside the blocked pair
-#: pass, and large per-step (n, B, m, d, d) temporaries crash the TPU worker
-#: with a kernel fault (bisected on-chip at m=1000: 115 MB temps fault;
-#: 40 MB and 12 MB run clean, at identical wall clock — the path is
-#: scan-bound, so the conservative cap costs nothing. VERDICT r2 weak #6 /
-#: BASELINE configs[4]). The complete path tolerates the larger default.
+#: pass, so each scan step holds (n, B, m, d, d) temporaries; the path is
+#: scan-bound, so a small per-step block costs little (BASELINE configs[4]).
+#: The complete path takes the larger default.
 MISSING_PAIR_BUDGET = int(
     os.environ.get("GPZ_PAIR_BUDGET_MISSING", str(3 * 10**6))
 )
@@ -97,7 +97,7 @@ MISSING_PAIR_BUDGET = int(
 #: posterior responsibilities Pio are a softmax whose mass concentrates on a
 #: handful of bases on trained models. Keeping each row's top-L components
 #: (renormalized) cuts the scans from m to L steps — the dominant cost of
-#: missing-data prediction at m=1000 (19 rows/s in round 3, VERDICT item 6).
+#: missing-data prediction at m=1000.
 #: L >= m disables truncation exactly. Truncation is GUARDED, not blind
 #: (ADVICE r4 #1: with flat responsibilities — untrained models, rows with
 #: few observed dims — the dropped mass is unbounded): predict_moments_full
@@ -123,16 +123,14 @@ def mix_dtype():
     MISSING path (env GPZ_MIX_DTYPE, default float32).
 
     The missing path's cost is its per-component scans — L sequential
-    (n, B, m, d, d) Cholesky/quad/exp chains (phi_step / ec_step). Run in
-    emulated f64 on TPU they measure 16 rows/s at m=1000; in f32,
-    167 rows/s (round-5 sweep). f32 is sound HERE even though the pair
+    (n, B, m, d, d) Cholesky/quad/exp chains (phi_step / ec_step), which
+    are cheaper in f32. f32 is sound HERE even though the pair
     pass needs f64 (module docstring): the mixture sums are NONNEGATIVE —
     sum_l Pio_l N_l has no cancellation, so per-component f32 relative
     error (~1e-6) passes through linearly instead of being amplified, and
     the pair tables (lnZij, lnNo) that DO feed cancellation-sensitive
     contractions stay in variance_dtype. Set GPZ_MIX_DTYPE=float64 to
-    restore the all-f64 chain (NB at m=1000 the f64 EXACT-mixture scan
-    has produced TPU worker kernel faults; the f32 scan runs clean)."""
+    restore the all-f64 chain."""
     return jnp.dtype(os.environ.get("GPZ_MIX_DTYPE", "float32"))
 
 
@@ -166,9 +164,9 @@ def predict_clean(params, post, cfg: ModelConfig, X, mask, psi=None,
     needed. Returns (mu, nu, beta_i, gamma, PHI).
     """
     PHI, _, ln_beta = design_matrix(params, cfg, X, mask, psi, complete)
-    mu = PHI @ post.w
+    mu = jnp.matmul(PHI, post.w, precision=_HI)
     # nu_k = diag(PHI iSigma_w_k PHI^T)
-    nu = jnp.einsum("nm,kmj,nj->nk", PHI, post.iSigma_w, PHI)
+    nu = jnp.einsum("nm,kmj,nj->nk", PHI, post.iSigma_w, PHI, precision=_HI)
     beta_i = jnp.exp(ln_beta)
     gamma = jnp.zeros_like(mu)
     return mu, nu, beta_i, gamma, PHI
@@ -193,7 +191,7 @@ def predict_moments_diag(params, post, priors, cfg: ModelConfig, X,
               GMM-conditioning machinery)
     """
     vdt = variance_dtype()                    # density-chain dtype (f64)
-    cdt = params.P.dtype                      # MXU contraction dtype (f32)
+    cdt = params.P.dtype                      # contraction dtype (f32)
     up = lambda a: a.astype(vdt)
     P = up(params.P)                          # (m, d)
     G = up(params.expand_gamma(cfg))
@@ -211,8 +209,7 @@ def predict_moments_diag(params, post, priors, cfg: ModelConfig, X,
     # --- responsibilities + expected activations (PHI) ---
     SP = psi[:, None, :] + Sigma[None, :, :]               # (n, m, d)
     Delta = X[:, None, :] - P[None, :, :]
-    # multiply+sum, not einsum: tiny-axis contractions compile
-    # pathologically on XLA:TPU (see phi.py)
+    # multiply+sum over the tiny d axis, not einsum (see phi.py)
     lnNo = jnp.sum(
         (-0.5 * Delta**2 / SP - 0.5 * jnp.log(SP)) * om[None, None, :],
         axis=-1,
@@ -232,15 +229,16 @@ def predict_moments_diag(params, post, priors, cfg: ModelConfig, X,
             (-0.5 * dP**2 / Sij - 0.5 * jnp.log(Sij)) * um[None, None, :],
             axis=-1,
         )
-        # nonnegative contraction — no cancellation, so the cdt MXU dot
+        # nonnegative contraction — no cancellation, so the cdt dot
         # keeps full relative accuracy on the vdt-accurate factors
         PHI = jnp.exp(lnz)[None, :] * jnp.exp(lnNo) * (
-            Pio.astype(cdt) @ jnp.exp(lnNij_u).astype(cdt)
+            jnp.matmul(Pio.astype(cdt), jnp.exp(lnNij_u).astype(cdt),
+                       precision=_HI)
         ).astype(vdt)
 
     PHI_c = PHI.astype(cdt)
-    mu = (PHI_c @ w).astype(vdt)                           # (n, k)
-    ElnS = (PHI_c @ v).astype(vdt)
+    mu = jnp.matmul(PHI_c, w, precision=_HI).astype(vdt)   # (n, k)
+    ElnS = jnp.matmul(PHI_c, v, precision=_HI).astype(vdt)
 
     # --- pairwise moment matching (predictDiag.m:93-121), tiled over blocks
     # of the first basis index i so the peak intermediate is (n, B, m, d)
@@ -301,20 +299,20 @@ def predict_moments_diag(params, post, priors, cfg: ModelConfig, X,
                     axis=-1,
                 )
                 Piob = jax.lax.dynamic_slice_in_dim(Pio_l, l0, B, 1)
-                # nonnegative mixture sum: cdt MXU contraction is safe
+                # nonnegative mixture sum: a cdt contraction is safe
                 return (jnp.einsum(
                     "nl,lij->nij", Piob.astype(cdt),
-                    jnp.exp(lnNu).astype(cdt)),)
+                    jnp.exp(lnNu).astype(cdt), precision=_HI),)
             (mix,) = _blocked_sum(
                 l_block, nb, B, (jnp.zeros((n, B, m), cdt),)
             )
             Ec = jnp.exp(lnNo_pair) * mix.astype(vdt)
-        # contractions on the cdt MXU: the pair densities are vdt-accurate,
-        # so the f32-grade dots only add ~eps_f32 * sum|terms| (~1e-6)
+        # contractions in cdt: the pair densities are vdt-accurate, so the
+        # f32 dots only add ~eps_f32 * sum|terms| (~1e-6)
         ZN = (jnp.exp(lnZij)[None] * Ec).astype(cdt)           # (n, B, m)
-        g_c = jnp.einsum("nij,ik,jk->nk", ZN, wb, w)
-        V_c = jnp.einsum("nij,ik,jk->nk", ZN, vb, v)
-        nu_c = jnp.einsum("nij,kij->nk", ZN, iSWb)
+        g_c = jnp.einsum("nij,ik,jk->nk", ZN, wb, w, precision=_HI)
+        V_c = jnp.einsum("nij,ik,jk->nk", ZN, vb, v, precision=_HI)
+        nu_c = jnp.einsum("nij,kij->nk", ZN, iSWb, precision=_HI)
         return g_c.astype(vdt), V_c.astype(vdt), nu_c.astype(vdt)
 
     zero = jnp.zeros((n, k), vdt)
@@ -354,7 +352,7 @@ def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
     n, d = X.shape
     m, k = cfg.m, cfg.k
     vdt = variance_dtype()                    # density-chain dtype (f64)
-    cdt = params.P.dtype                      # MXU contraction dtype (f32)
+    cdt = params.P.dtype                      # contraction dtype (f32)
     up = lambda a: a.astype(vdt)
     P = up(params.P)
     G = up(params.expand_gamma(cfg))          # (m, d, d)
@@ -368,9 +366,8 @@ def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
     M = jnp.diag(om)                          # (d, d)
     eye = jnp.eye(d, dtype=vdt)
 
-    # all batched tiny (d x d) factorizations below use the unrolled VPU
-    # path (linalg.unrolled_*): lax.linalg lowering on TPU is both slow and
-    # HBM-hungry at these shapes
+    # all batched tiny (d x d) factorizations below use the unrolled
+    # elementwise path (linalg.unrolled_*, see unrolled_cholesky)
     iSig = jnp.einsum("mij,mik->mjk", G, G)   # (m, d, d)
     Sigma, logdet_iSig = unrolled_inv_psd(iSig)
     lnz = -0.5 * logdet_iSig                  # = +0.5 logdet Sigma, (m,)
@@ -441,9 +438,7 @@ def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
         # as a scan over mixture components j so the peak intermediate is
         # (n, m, d, d) — never the (n, m, m, d, d) tensor (VERDICT r1 item 7).
         # The scans run in mix_dtype (f32): the sums are nonnegative, so
-        # per-component f32 error passes through linearly — and the
-        # emulated-f64 version of these chains was 10x slower AND kernel-
-        # faulted the TPU worker at the m=1000 exact mixture (see mix_dtype)
+        # per-component f32 error passes through linearly (see mix_dtype)
         mdt = mix_dtype()
         mix_xs = (
             jnp.moveaxis(Ph_t, 1, 0).astype(mdt),                  # (L, n, d, d)
@@ -466,15 +461,14 @@ def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
         PHI = jnp.exp(lnz)[None, :] * phi_sum.astype(X.dtype)
 
     PHI_c = PHI.astype(cdt)
-    mu = (PHI_c @ w).astype(vdt)
-    ElnS = (PHI_c @ v).astype(vdt)
+    mu = jnp.matmul(PHI_c, w, precision=_HI).astype(vdt)
+    ElnS = jnp.matmul(PHI_c, v, precision=_HI).astype(vdt)
 
     # --- pairwise pass (predictCov.m:101-113,180-218), tiled over blocks of
     # basis index i; the mixture sum of the missing path runs as a scan over
     # components l so the reference's (n, l, i, j, d, d) triple-loop tensor
     # never materializes — peak live block is (n, B, m, d, d) elements ---
-    # multiply+sum, not einsum: keeps the vdt table on the accurate
-    # elementwise path (the TPU backend's f64 dot is f32-grade)
+    # multiply+sum over the tiny d axis, not einsum (see phi.py)
     PiS = jnp.sum(P[:, :, None] * iSig, axis=1)             # (m, d)
     B = _block_size(n, m, d * d,
                     0 if complete else MISSING_PAIR_BUDGET,
@@ -538,12 +532,12 @@ def predict_moments_full(params, post, priors, cfg: ModelConfig, X,
             )
             Ec = Ec.astype(X.dtype)
 
-        # contractions on the cdt MXU: the pair densities are vdt-accurate,
-        # so the f32-grade dots only add ~eps_f32 * sum|terms| (~1e-6)
+        # contractions in cdt: the pair densities are vdt-accurate, so the
+        # f32 dots only add ~eps_f32 * sum|terms| (~1e-6)
         ZN = (jnp.exp(lnZij)[None] * Ec).astype(cdt)           # (n, B, m)
-        g_c = jnp.einsum("nij,ik,jk->nk", ZN, wb, w)
-        V_c = jnp.einsum("nij,ik,jk->nk", ZN, vb, v)
-        nu_c = jnp.einsum("nij,kij->nk", ZN, iSWb)
+        g_c = jnp.einsum("nij,ik,jk->nk", ZN, wb, w, precision=_HI)
+        V_c = jnp.einsum("nij,ik,jk->nk", ZN, vb, v, precision=_HI)
+        nu_c = jnp.einsum("nij,kij->nk", ZN, iSWb, precision=_HI)
         return g_c.astype(vdt), V_c.astype(vdt), nu_c.astype(vdt)
 
     zero = jnp.zeros((n, k), vdt)

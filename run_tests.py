@@ -17,7 +17,6 @@ TOTAL line; TESTS.md records the counts from consecutive runs.
 
 from __future__ import annotations
 
-import os
 import re
 import subprocess
 import sys
@@ -35,11 +34,10 @@ BATCHES = [
      "test_model_2d.py"],
     ["test_model_photoz.py", "test_model_sinc.py", "test_native.py",
      "test_nuts.py"],
-    ["test_objective.py", "test_ops.py", "test_ozaki.py"],
+    ["test_objective.py", "test_ops.py", "test_ozaki.py", "test_gpu.py"],
     ["test_phi.py"],
     ["test_predict.py", "test_predict_cov.py", "test_sharding.py"],
     ["test_solvers.py", "test_parity_numbers.py"],
-    ["test_tpu.py"],
 ]
 
 SUMMARY_RE = re.compile(
@@ -74,12 +72,7 @@ def main() -> int:
     for batch in BATCHES:
         files = [f"tests/{f}" for f in batch]
         cmd = [sys.executable, "-m", "pytest", "-q", *files, *extra]
-        env = dict(os.environ)
-        if batch == ["test_tpu.py"]:
-            # let the on-silicon module see the real TPU (conftest gate);
-            # it self-skips when no TPU backend is reachable
-            env["GPZ_TPU_TESTS"] = "1"
-        r = subprocess.run(cmd, capture_output=True, text=True, env=env)
+        r = subprocess.run(cmd, capture_output=True, text=True)
         out = r.stdout + r.stderr
         p, f, s, e = parse_counts(out)
         tot_p += p

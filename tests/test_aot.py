@@ -1,8 +1,7 @@
 """AOT executable cache (gpz_tpu.aot): cross-process trace skipping.
 
-The fresh-process north-star tax includes ~5-9 s of jax trace+lower per
-training phase per process even with a warm persistent compilation cache
-(PRECISION.md §6-7). minimize(aot_key=...) serializes the compiled
+A fresh process pays jax trace+lower per training phase even with a warm
+persistent compilation cache. minimize(aot_key=...) serializes the compiled
 executable; a repeat call (or process) with the same semantic key,
 argument signature, and code fingerprint calls the deserialized
 executable directly. These tests pin: result equality through the cache,
@@ -22,10 +21,12 @@ from gpz_tpu.optim.lbfgs import minimize
 
 @pytest.fixture
 def aot_dir(tmp_path, monkeypatch):
-    monkeypatch.setenv("GPZ_AOT_DIR", str(tmp_path))
+    # the AOT files live under the compile-cache root (aot._dir)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     monkeypatch.delenv("GPZ_AOT", raising=False)
     aot._LOADED.clear()
-    yield tmp_path
+    (tmp_path / "aot").mkdir()
+    yield tmp_path / "aot"
     aot._LOADED.clear()
 
 

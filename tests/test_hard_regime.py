@@ -1,7 +1,7 @@
 """Hard-regime solve-path selection (VERDICT r4 next #2).
 
 At trained/continuation iterates the f32 pipeline can be unusable in two
-distinct ways, measured at the trained photo-z point on TPU:
+distinct ways, seen at the trained photo-z point:
   * non-finite: cond(iSig) ~ 3e9 NaNs ~1% of the f32 design-matrix
     factorizations, NaN-ing the whole objective (every safe_cholesky then
     walks its full jitter ladder, ~8 factorizations per eval);

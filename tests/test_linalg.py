@@ -129,7 +129,7 @@ def test_pca_whiten_roundtrip(rng):
 
 def test_solve_w_logdet_custom_vjp_matches_ad():
     """solve_w_logdet's closed-form cotangents (triangular solves + outer
-    products; PRECISION.md §3) must equal AD through the stock
+    products) must equal AD through the stock
     cholesky/solve path — exact on CPU, where the stock VJP is accurate."""
     import jax
     import jax.numpy as jnp

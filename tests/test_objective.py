@@ -171,7 +171,7 @@ def test_holdout_metrics_finite(rng):
 
 @pytest.mark.parametrize("method,with_psi,with_missing,het", CASES)
 def test_mixed_mode_matches_strict(rng, method, with_psi, with_missing, het):
-    """The TPU-default mixed solve mode (blockwise f32 Gram accumulation +
+    """The mixed solve mode (blockwise f32 Gram accumulation +
     f32 Cholesky with one f64 refinement of the posterior solve) must agree
     with the strict f64 path to f32-accumulation accuracy (~1e-6 value,
     looser on gradients). Exercised on CPU by forcing solve_mode."""

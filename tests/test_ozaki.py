@@ -1,10 +1,10 @@
-"""Ozaki-scheme exact MXU contractions (ops/ozaki.py).
+"""Ozaki-scheme exact contractions from bf16 slice products (ops/ozaki.py).
 
-The scheme replaces the backend f64 dot (f32-grade on TPU, PRECISION.md §3)
-in the objective's Gram/rhs reductions. These CPU tests pin the numerics:
-the bf16 slice products must reconstruct the true-f64 contraction to
-~1e-13 regardless of backend, and the custom VJPs must match plain AD.
-On-silicon accuracy is asserted in tests/test_tpu.py.
+The scheme can replace the backend f64 dot in the objective's Gram/rhs
+reductions (GPZ_OZAKI=1). These CPU tests pin the numerics: the bf16 slice
+products must reconstruct the true-f64 contraction to ~1e-13 regardless of
+backend, and the custom VJPs must match plain AD. chip_smoke.py runs the
+exactness checks on a GPU.
 """
 
 import os
@@ -104,7 +104,7 @@ def test_tn_vjp_matches_plain_ad(W, rng):
 
 
 def test_objective_ozaki_matches_plain_strict(rng, monkeypatch):
-    """The shipped-TPU gram path == the plain strict path on CPU (f64)."""
+    """The Ozaki Gram path == the plain strict path on CPU (f64)."""
     from bench import make_problem
     from gpz_tpu.objective import nlog_ml
     import dataclasses

@@ -193,9 +193,9 @@ def test_missing_cov_mix_dtype_error_bound(rng, monkeypatch):
     """The default f32 mixture-conditional chain (predict.mix_dtype) must
     stay within ~1e-4 relative of the all-f64 chain: the mixture sums are
     nonnegative, so per-component f32 rounding passes through linearly
-    instead of being amplified by the pair pass's cancellations. This is
-    the 10x lever on missing-data prediction at m=1000 (16 -> 167 rows/s
-    on the chip, round-5 sweep)."""
+    instead of being amplified by the pair pass's cancellations, and the
+    float32 scans are the cheap ones for missing-data prediction at
+    m=1000."""
     n, d, m, k = 8, 4, 24, 1
     cfg = ModelConfig(m=m, d=d, k=k, method="VC", dtype="float64")
     params = make_params(rng, cfg)

@@ -135,11 +135,10 @@ def test_ensemble_grad_step_2d_mesh(mesh2x4):
 @pytest.mark.parametrize("mode", ["mixed", "strict"])
 def test_sharded_ozaki_fastsolve_matches_single_device(mesh8, monkeypatch,
                                                        mode):
-    """The numerics the TPU actually ships — Ozaki-scheme exact Gram/rhs
-    (GPZ_OZAKI=1) and, in mixed mode, the equilibrated-f32 + exact-IR
-    fast solve — must be psum-exact under row sharding too (VERDICT r3
-    item 4: the suite previously only validated the einsum Gram path the
-    CPU takes by default).
+    """The Ozaki numerics — slice-product Gram/rhs (GPZ_OZAKI=1) and, in
+    mixed mode, the equilibrated-f32 + exact-IR fast solve — must be
+    psum-exact under row sharding too, not only the einsum Gram path the
+    CPU and GPU take by default.
 
     Per-shard Ozaki slice grids depend on per-block column maxima, so the
     sharded result is not bit-identical to single-device — but both are
@@ -149,7 +148,7 @@ def test_sharded_ozaki_fastsolve_matches_single_device(mesh8, monkeypatch,
     monkeypatch.setenv("GPZ_OZAKI", "1")
     rng = np.random.default_rng(11)
     cfg, params, data, *_ = build(rng, "VC", True, False, True, n=37)
-    # the shipped TPU configuration: f32 params/data, f64 solve quantities
+    # f32 params/data, f64 solve quantities
     cfg = dataclasses.replace(cfg, dtype="float32", solve_mode=mode,
                               solve_dtype="float64")
     params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
